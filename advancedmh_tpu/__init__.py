@@ -1,10 +1,10 @@
-"""advancedmh_tpu — a TPU-native Metropolis-Hastings inference framework.
+"""advancedmh_tpu — a many-chain Metropolis-Hastings inference framework.
 
 A from-scratch JAX/XLA/Pallas framework covering the full capability surface
-of TuringLang/AdvancedMH.jl (reference mounted at /root/reference, v0.8.8),
-re-architected TPU-first: samplers are pure ``(key, state) → (state, info)``
-kernels composed by ``lax.scan`` over steps, ``vmap`` over thousands of
-chains per chip, and ``shard_map`` over a ``chains`` device-mesh axis.
+of TuringLang/AdvancedMH.jl (v0.8.8), re-architected for accelerators:
+samplers are pure ``(key, state) → (state, info)`` kernels composed by
+``lax.scan`` over steps, ``vmap`` over thousands of chains per device, and
+``shard_map`` over a ``chains`` device-mesh axis.
 
 Public surface ≙ the reference exports (src/AdvancedMH.jl:15-30).
 """

@@ -1,6 +1,6 @@
 """Distribution protocol.
 
-TPU-native replacement for the slice of Distributions.jl the reference uses
+JAX-native replacement for the slice of Distributions.jl the reference uses
 (``rand`` / ``logpdf`` at reference src/proposal.jl:24-35). Distributions are
 immutable pytree dataclasses whose parameters may be traced arrays — this is
 what lets *state-dependent* proposals (reference src/proposal.jl:92-126, e.g.

@@ -3,10 +3,12 @@
 ``MvNormal`` keeps *structure-aware fast paths* — isotropic / diagonal scales
 avoid the d×d matvec entirely, which matters because the reference's most
 common construction is the standard-normal random walk
-(``RWMH(d) = MvNormal(Zeros(d), I)``, reference src/mh-core.jl:48-51): on TPU
-that proposal must compile to a pure VPU ``randn``-scale-add, not a matmul.
-The full ``scale_tril`` path becomes a batched triangular matvec under
-``vmap`` (mapped onto the MXU for large chain batches).
+(``RWMH(d) = MvNormal(Zeros(d), I)``, reference src/mh-core.jl:48-51): that
+proposal must compile to a pure elementwise ``randn``-scale-add, not a
+matmul. The full ``scale_tril`` path becomes a batched triangular matvec
+under ``vmap``, at ``HIGHEST`` precision: pCN and EllipticalSlice are exact
+only if this prior draw is, and a float32 matmul on the GPU otherwise runs
+in TF32.
 """
 from __future__ import annotations
 
@@ -59,8 +61,11 @@ class MvNormal(Distribution):
         shape = sample_shape + jnp.shape(self.loc)
         eps = jr.normal(key, shape, dtype=jnp.result_type(self.loc, float))
         if self.scale_tril is not None:
-            # x = loc + L @ eps ; batched: einsum maps to MXU under vmap.
-            return self.loc + jnp.einsum("...ij,...j->...i", self.scale_tril, eps)
+            # x = loc + L @ eps, in full float32 (not TF32).
+            return self.loc + jnp.einsum(
+                "...ij,...j->...i", self.scale_tril, eps,
+                precision=jax.lax.Precision.HIGHEST,
+            )
         if self.scale_diag is not None:
             return self.loc + self.scale_diag * eps
         return self.loc + self.scale * eps

@@ -1,9 +1,11 @@
 """Streaming chain store — Python bindings over the native writer.
 
 Wraps native/chainstore.cpp (background-thread binary log) via ctypes; the
-shared library is built on first use with g++ and cached next to the source.
-Falls back to a synchronous pure-numpy writer when no toolchain is available
-(same on-disk format, so readers don't care).
+shared library is built from that source with g++ into the git-ignored
+``build/`` directory of the checkout, on first use or ahead of time with
+``python -c "from advancedmh_tpu.io.chainstore import build_native;
+build_native()"``. Falls back to a synchronous pure-numpy writer when no
+toolchain is available (same on-disk format, so readers don't care).
 
 Format: ``<path>.bin`` is raw row-major little-endian float32
 ``[rows × n_cols]``; ``<path>.json`` records the schema. Reading memory-maps
@@ -25,10 +27,30 @@ _REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 _SRC = os.path.join(_REPO_ROOT, "native", "chainstore.cpp")
-_LIB_PATH = os.path.join(_REPO_ROOT, "native", "libchainstore.so")
+_LIB_PATH = os.path.join(_REPO_ROOT, "build", "libchainstore.so")
 _build_lock = threading.Lock()
 _lib = None
 _lib_failed = False
+
+
+def build_native() -> str:
+    """Compile native/chainstore.cpp into ``build/`` unless an up-to-date
+    library is already there; return its path. The library is written under
+    a temporary name and renamed, so a concurrent process never loads a
+    half-written file."""
+    if os.path.exists(_LIB_PATH) and os.path.getmtime(
+        _LIB_PATH
+    ) >= os.path.getmtime(_SRC):
+        return _LIB_PATH
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", _SRC,
+         "-o", tmp],
+        check=True, capture_output=True,
+    )
+    os.replace(tmp, _LIB_PATH)
+    return _LIB_PATH
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
@@ -39,18 +61,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
         if _lib is not None or _lib_failed:
             return _lib
         try:
-            # Rebuild only when the source is present and newer; an installed
-            # package may ship the .so without the .cpp — use it as-is.
-            if not os.path.exists(_LIB_PATH) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)
-            ):
-                subprocess.run(
-                    ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                     "-pthread", _SRC, "-o", _LIB_PATH],
-                    check=True, capture_output=True,
-                )
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(build_native())
             lib.cs_open.restype = ctypes.c_void_p
             lib.cs_open.argtypes = [ctypes.c_char_p, ctypes.c_int64]
             lib.cs_append.restype = ctypes.c_int64

@@ -52,7 +52,8 @@ class DensityModel:
     # Optional natively-batched density ``params(C, ...) -> lp(C,)`` for the
     # vectorized kernel path; default is vmap of logdensity_fn (XLA fuses it
     # identically for elementwise densities — supply this only when a manual
-    # batched form maps better onto the MXU, e.g. a matmul-heavy likelihood).
+    # batched form maps better onto one matmul, e.g. a matmul-heavy
+    # likelihood).
     logdensity_batched_fn: Optional[Callable[[Any], jax.Array]] = static_field(
         default=None
     )

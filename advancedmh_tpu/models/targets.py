@@ -1,8 +1,9 @@
 """Prebuilt example target models (the reference's test/README models).
 
 These serve as fixtures for tests/benchmarks and as user-facing examples.
-Each returns a :class:`DensityModel`; models that are Pallas-expressible also
-carry a transposed tile density for the fused kernel (ops/pallas_mh.py).
+Each returns a :class:`DensityModel`; models whose dimension and data shapes
+are powers of two also carry a transposed tile density for the fused RWMH
+kernel (ops/pallas_mh.py), written in ops that lower on the Triton route.
 """
 from __future__ import annotations
 
@@ -14,9 +15,23 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..distributions import InverseGamma, MvNormal, Normal
+from ..ops.pallas_mh import tile_rows
 from .density import DensityModel, guarded_logdensity
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _pad_column_pow2(v: np.ndarray):
+    """``v`` as an ``(n_pad, 1)`` column padded with zeros to a power of two,
+    and the matching 0/1 mask, so a tile density can sum over the rows
+    without the padding changing it."""
+    n = v.shape[0]
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    col = np.zeros((n_pad, 1), np.float32)
+    col[:n, 0] = v
+    mask = np.zeros((n_pad, 1), np.float32)
+    mask[:n, 0] = 1.0
+    return col, mask
 
 
 def gaussian_mean_scale_model(
@@ -39,26 +54,26 @@ def gaussian_mean_scale_model(
         safe_params_fn=lambda t: jnp.stack([t[0], jnp.maximum(t[1], 0.1)]),
     )
 
-    def tile_density(p, obs):
-        """Transposed tile form for the fused Pallas kernel: p (2, TC).
-
-        One reciprocal per chain instead of n_obs divides per chain — VPU
-        divides dominate this density, multiplies are cheap.
-        """
-        mu, sigma = p[0:1], p[1:2]
+    def tile_density(p, obs, mask):
+        """Transposed tile form for the fused kernel: p (2, TC); ``obs`` is
+        the data padded to a power-of-two column, ``mask`` zeroes the
+        padding rows. One reciprocal per chain instead of n_obs divides."""
+        mu, sigma = tile_rows(p)
         inv = 1.0 / jnp.maximum(sigma, 0.1)
         z = (obs - mu) * inv
         lp = (
-            jnp.sum(-0.5 * z * z, axis=0, keepdims=True)
+            jnp.sum(-0.5 * mask * z * z, axis=0, keepdims=True)
             + n * jnp.log(inv)
             - n * _HALF_LOG_2PI
         )
         return jnp.where(sigma >= 0, lp, -jnp.inf)
 
     model = DensityModel(ld, dimension=2)
-    # attach Pallas extras without widening the core dataclass
+    # attach the tile form without widening the core dataclass
     object.__setattr__(model, "tile_density", tile_density)
-    object.__setattr__(model, "tile_consts", (np.asarray(data).reshape(-1, 1),))
+    object.__setattr__(
+        model, "tile_consts", _pad_column_pow2(np.asarray(data, np.float32))
+    )
     return model
 
 
@@ -78,13 +93,10 @@ def correlated_gaussian_model(cov) -> DensityModel:
         return mv.log_prob(x), g
 
     def tile_density(x, prec_c):
-        """Pallas tile form: x (d, TC), prec_c (d, d) const; statically
-        unrolled quadratic form (Mosaic-friendly, no tiny matmuls)."""
-        px = [
-            sum(prec_c[i, j] * x[j : j + 1] for j in range(d))
-            for i in range(d)
-        ]
-        q = sum(x[i : i + 1] * px[i] for i in range(d))
+        """Tile form: x (d, TC), prec_c (d, d) const; the quadratic form as
+        broadcast-multiply-reduce in exact float32 (no tiny matmuls)."""
+        px = jnp.sum(prec_c[:, :, None] * x[None, :, :], axis=1)
+        q = jnp.sum(x * px, axis=0, keepdims=True)
         return -0.5 * q + logdet_const
 
     model = DensityModel(
@@ -129,18 +141,9 @@ def neal_funnel_model(d: int = 10) -> DensityModel:
         gx = -e * x
         return lp, jnp.concatenate([gv[None], gx])
 
-    def tile_density(t):
-        """Pallas tile form: t (d, TC)."""
-        v = t[0:1]
-        sq = jnp.sum(t[1:] * t[1:], axis=0, keepdims=True)
-        return -v * v / 18.0 - 0.5 * dm1 * v - 0.5 * jnp.exp(-v) * sq + const
-
-    model = DensityModel(
+    return DensityModel(
         logdensity, logdensity_and_gradient_fn=ldg, dimension=d
     )
-    object.__setattr__(model, "tile_density", tile_density)
-    object.__setattr__(model, "tile_consts", ())
-    return model
 
 
 def banana_model(b: float = 0.03, sigma1: float = 10.0) -> DensityModel:
@@ -168,8 +171,8 @@ def banana_model(b: float = 0.03, sigma1: float = 10.0) -> DensityModel:
         return lp, jnp.stack([g0, -y2])
 
     def tile_density(x):
-        """Pallas tile form: x (2, TC)."""
-        x1, x2 = x[0:1], x[1:2]
+        """Tile form: x (2, TC)."""
+        x1, x2 = tile_rows(x)
         y2 = x2 + b * x1 * x1 - b * s1_sq
         return -0.5 * x1 * x1 / s1_sq - 0.5 * y2 * y2 + const
 
@@ -196,11 +199,11 @@ def logistic_regression_model(
     The higher-dimensional showcase target (the reference's models are all
     d=2 closures; this is the same black-box-DensityModel capability,
     reference src/AdvancedMH.jl:52-54, at production scale). The likelihood
-    is a matmul — on TPU the density rides the MXU in every path: the
-    vectorized XLA kernel evaluates ``(C, d) @ (d, n)``, and the fused Pallas
-    kernels evaluate ``X (n, d) @ β (d, TC)`` in VMEM. Softplus uses the
-    overflow-stable form ``max(z, 0) + log1p(exp(−|z|))`` (Mosaic-safe: no
-    powf).
+    is a matmul: the vectorized XLA kernel evaluates ``(C, d) @ (d, n)`` at
+    the default matmul precision (TF32 on the GPU), and the fused kernel's
+    tile form evaluates ``X (n, d) @ β (d, TC)`` at ``HIGHEST`` (IEEE
+    float32). Softplus uses the overflow-stable form
+    ``max(z, 0) + log1p(exp(−|z|))``.
 
     When ``X``/``y`` are omitted, a synthetic dataset is generated and the
     generating coefficients are attached as ``model.beta_true``.
@@ -237,16 +240,17 @@ def logistic_regression_model(
         g = X.T @ (y - jax.nn.sigmoid(z)) - inv_var * beta
         return lp, g
 
-    def batched(betas):  # (C, d) -> (C,): one MXU matmul for all chains
+    def batched(betas):  # (C, d) -> (C,): one matmul for all chains
         z = betas @ X.T  # (C, n)
         ll = jnp.sum(y[None, :] * z - _softplus(z), axis=1)
         return ll - 0.5 * inv_var * jnp.sum(betas * betas, axis=1)
 
     def tile_density(b, Xc, yc):
-        """Pallas tile form: b (d, TC), Xc (n, d), yc (n, 1) — the logits
-        matmul runs on the MXU inside the fused kernel."""
+        """Tile form: b (d, TC), Xc (n, d), yc (n, 1). The logits matmul is
+        a ``pl.dot`` inside the fused kernel, at IEEE float32 precision."""
         z = jax.lax.dot_general(
             Xc, b, (((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,
         )  # (n, TC)
         ll = jnp.sum(yc * z - _softplus(z), axis=0, keepdims=True)
@@ -274,8 +278,8 @@ def emcee_demo_model(transformed: bool = False) -> DensityModel:
     means s̄ = 49/24, m̄ = 7/6. ``transformed=True`` uses (log s, m) with the
     Jacobian correction."""
 
-    # Closed form of the joint density, shared by the tile kernels below
-    # (Mosaic-safe: log/div only — no powf, no lgamma; lgamma(2) = 0):
+    # Closed form of the joint density, shared by the tile forms below
+    # (log/div only — no powf, no lgamma; lgamma(2) = 0):
     #   IG(2,3):  2·log 3 − 3·log s − 3/s
     #   N(0,√s)(m) + N(m,√s)(1.5) + N(m,√s)(2.0):
     #             −(3/2)(log s + log 2π) − [m² + (1.5−m)² + (2−m)²]/(2s)
@@ -307,8 +311,8 @@ def emcee_demo_model(transformed: bool = False) -> DensityModel:
             )
 
         def tile_density_t(x):
-            """Pallas tile form: x = (log s, m) rows, shape (2, TC)."""
-            logs, m = x[0:1, :], x[1:2, :]
+            """Tile form: x = (log s, m) rows, shape (2, TC)."""
+            logs, m = tile_rows(x)
             return _joint_from_s(logs, jnp.exp(-logs), m) + logs
 
         model = DensityModel(logprob, dimension=2)
@@ -329,10 +333,10 @@ def emcee_demo_model(transformed: bool = False) -> DensityModel:
         return jnp.where(s > 0, lp, -jnp.inf)
 
     def tile_density(x):
-        """Pallas tile form: x = (s, m) rows, shape (2, TC). Out-of-support
+        """Tile form: x = (s, m) rows, shape (2, TC). Out-of-support
         proposals (s ≤ 0) get a large-negative lp instead of −inf so in-kernel
         logα arithmetic never produces NaN."""
-        s, m = x[0:1, :], x[1:2, :]
+        s, m = tile_rows(x)
         safe_s = jnp.maximum(s, jnp.float32(1e-6))
         lp = _joint_from_s(jnp.log(safe_s), 1.0 / safe_s, m)
         return jnp.where(s > 0, lp, jnp.float32(-1e30))
@@ -364,7 +368,7 @@ def gp_latent_model(
     - ``model`` — :class:`DensityModel` whose logdensity is the
       **log-likelihood only** (what ESS consumes)
     - ``prior`` — ``MvNormal(0, scale_tril=chol(K))``; under a chain batch
-      its per-step ellipse draw is a batched triangular matvec on the MXU
+      its per-step ellipse draw is a batched triangular matvec
     - ``aux`` — dict with the grid ``x``, observations ``y``, the true
       latent ``f_true``, and for ``likelihood="gaussian"`` the analytic
       posterior ``post_mean``/``post_cov`` (closed form:
@@ -411,7 +415,7 @@ def gp_latent_model(
                 _HALF_LOG_2PI + math.log(noise)
             )
 
-        def tile_density(f, y_col):  # Pallas tile form: f (d, TC)
+        def tile_density(f, y_col):  # tile form: f (d, TC)
             r = y_col - f
             return -0.5 * inv2 * jnp.sum(r * r, axis=0, keepdims=True) - (
                 n_points * (_HALF_LOG_2PI + math.log(noise))

@@ -1,35 +1,10 @@
 from .cholesky import chol_rank1_update, chol_rank1_update_batched
-from .pallas_adapt import fused_adapt_rwmh_sample
-from .pallas_am import fused_am_sample
-from .pallas_barker import fused_barker_sample
-from .pallas_demc import fused_demc_sample
-from .pallas_dr import fused_dr_sample
-from .pallas_dram import fused_dram_sample
-from .pallas_emcee import fused_emcee_sample
-from .pallas_mala import fused_mala_sample
-from .pallas_mh import fused_rwmh, fused_rwmh_sample, tile_fn_from_batched
-from .pallas_mtm import fused_mtm, fused_mtm_sample
-from .pallas_pcn import fused_pcn_sample
-from .pallas_ram import fused_ram_sample
-from .pallas_tempering import fused_tempering_sample
+from .pallas_mh import fused_rwmh_sample, tile_fn_from_batched, tile_rows
 
 __all__ = [
     "chol_rank1_update",
     "chol_rank1_update_batched",
-    "fused_adapt_rwmh_sample",
-    "fused_am_sample",
-    "fused_barker_sample",
-    "fused_demc_sample",
-    "fused_dr_sample",
-    "fused_dram_sample",
-    "fused_emcee_sample",
-    "fused_mala_sample",
-    "fused_rwmh",
     "fused_rwmh_sample",
-    "fused_mtm",
-    "fused_pcn_sample",
-    "fused_mtm_sample",
-    "fused_ram_sample",
-    "fused_tempering_sample",
     "tile_fn_from_batched",
+    "tile_rows",
 ]

@@ -3,7 +3,7 @@
 ≙ the reference's ``LinearAlgebra.lowrankupdate!``/``lowrankdowndate!`` calls
 (reference src/RobustAdaptiveMetropolis.jl:167-170) — the one dense-linear-
 algebra op in the reference with **no XLA primitive**, so it is hand-written
-here as a TPU-native kernel (SURVEY.md §2 "native-code audit").
+here as a JAX kernel (SURVEY.md §2 "native-code audit").
 
 Given lower-triangular ``L`` with ``A = L Lᵀ`` and a vector ``v``, computes
 the Cholesky factor of ``A + sign·v vᵀ`` via the classical O(d²) column sweep
@@ -11,14 +11,9 @@ the Cholesky factor of ``A + sign·v vᵀ`` via the classical O(d²) column swee
 parameterized by ``sign`` so the traced sign of RAM's Δα needs no
 ``lax.cond``).
 
-Two implementations:
-
-- :func:`chol_rank1_update` — ``lax.fori_loop`` sweep with full-column masked
-  vector ops; ``vmap``s cleanly over a chain batch (the batched column
-  gathers/scatters vectorize on the VPU).
-- the fused RAM engine carries its own VMEM-resident sweep (statically
-  unrolled, chains-across-lanes layout) inside the kernel — see
-  ``ops/pallas_ram.py::chol_update``.
+:func:`chol_rank1_update` is a ``lax.fori_loop`` sweep with full-column
+masked vector ops (statically unrolled for small ``d``); it ``vmap``s
+cleanly over a chain batch.
 
 A failed downdate (the updated matrix is not positive definite — the case
 where Julia throws ``PosDefException``) is reported through the returned
@@ -36,9 +31,9 @@ import jax.numpy as jnp
 from jax import lax
 
 
-# Crossover measured on v5e (benchmarks: RAM warmup, 4096 chains): the
-# unrolled form wins below ~16 dims (+30% at d=8), the masked fori_loop wins
-# above (static unrolling at d=32 regressed 1.8x).
+# Largest d whose sweep is statically unrolled; above it the masked
+# fori_loop keeps the program small. The crossover on the GPU is not
+# measured.
 UNROLL_MAX_DIM = 16
 
 
@@ -53,8 +48,7 @@ def chol_rank1_update(
 
     For ``d <= UNROLL_MAX_DIM`` the column sweep is *statically unrolled*:
     every index is compile-time constant, so the batched (vmapped) form
-    compiles to pure dense vector ops with no dynamic gather/scatter — the
-    difference between HBM-bound scatter chains and fused VPU arithmetic.
+    compiles to pure dense vector ops with no dynamic gather/scatter.
     Larger ``d`` falls back to a ``fori_loop`` with masked column ops.
     """
     d = L.shape[-1]

@@ -2,7 +2,7 @@
 
 ≙ SURVEY.md §2 'Ensemble/walker parallelism': walkers shard across devices;
 each half-move needs the *complementary* half-ensemble, exchanged with a
-single ``jax.lax.all_gather`` over ICI — the only collective in any hot loop
+single ``jax.lax.all_gather`` — the only collective in any hot loop
 of this framework. Within a half-move every device updates its local walker
 shard independently against the gathered frozen half.
 
@@ -48,7 +48,7 @@ def build_sharded_ensemble_step(
     def local_half_move(key, active_params, active_lp, other_params, other_lp):
         # Per-device distinct RNG stream.
         key = jax.random.fold_in(key, jax.lax.axis_index(axis))
-        # The complementary half rides ICI once per half-move.
+        # The complementary half is gathered once per half-move.
         other_params = jax.tree_util.tree_map(
             lambda x: jax.lax.all_gather(x, axis, tiled=True), other_params
         )

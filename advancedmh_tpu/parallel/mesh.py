@@ -2,10 +2,11 @@
 
 The reference's distributed backend is Julia ``Distributed`` workers (one
 chain per process, TCP master/worker — SURVEY.md §2 'Distributed
-communication backend'). The TPU-native equivalent is a 1-D ``chains`` mesh
-over all devices (ICI within a slice, DCN across hosts): chains live as a
-sharded array axis, there is no serialization boundary, and plain MH/MALA/RAM
-need zero collectives in the hot loop.
+communication backend'). Here it is a 1-D ``chains`` mesh over all devices
+(every GPU of a host reaches every other over NVLink at the same rate, so the
+mesh follows the algorithm alone): chains live as a sharded array axis,
+there is no serialization boundary, and plain MH/MALA/RAM need zero
+collectives in the hot loop.
 """
 from __future__ import annotations
 

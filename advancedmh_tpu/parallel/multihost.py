@@ -1,9 +1,9 @@
 """Multi-host orchestration helpers.
 
 ≙ the reference's ``MCMCDistributed`` process-level chain parallelism
-(SURVEY.md §2), scaled to TPU pods: one JAX process per host, a global 1-D
-``chains`` mesh spanning all devices (ICI within a slice, DCN across), chains
-sharded over the global axis. Plain MH/MALA/RAM run with **zero hot-loop
+(SURVEY.md §2), scaled to several hosts: one JAX process per host, a
+global 1-D ``chains`` mesh spanning all devices (NVLink within a host, the
+network across), chains sharded over the global axis. Plain MH/MALA/RAM run with **zero hot-loop
 collectives**; per-host shards never communicate until bundling.
 
 Usage on each host::
@@ -32,22 +32,13 @@ from .mesh import make_mesh
 
 _initialized = False
 
-# Env vars whose presence marks a multi-host launch (TPU pod runtimes and
-# explicit jax.distributed setups set one of these before process start).
-_COORDINATOR_ENV_VARS = (
-    "COORDINATOR_ADDRESS",
-    "JAX_COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-)
+# Env vars whose presence marks a multi-host launch (explicit
+# jax.distributed setups set one of these before process start).
+_COORDINATOR_ENV_VARS = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
 
 
 def _multi_host_env() -> bool:
-    if any(os.environ.get(v) for v in _COORDINATOR_ENV_VARS):
-        return True
-    # Pod runtimes list every worker; one entry (e.g. 'localhost') is a
-    # single-host world that must not attempt distributed init.
-    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    return len([h for h in hosts.split(",") if h.strip()]) > 1
+    return any(os.environ.get(v) for v in _COORDINATOR_ENV_VARS)
 
 
 def initialize(
@@ -60,9 +51,9 @@ def initialize(
     Wraps ``jax.distributed.initialize``. **Call this before any other jax
     API** — even ``jax.process_count()`` initializes the local backend,
     after which distributed init is impossible; this function therefore
-    decides single- vs multi-process from its arguments and the pod
+    decides single- vs multi-process from its arguments and the launch
     environment, never by probing jax, and lets real initialization errors
-    on a pod propagate instead of silently degrading to per-host worlds.
+    propagate instead of silently degrading to per-host worlds.
     """
     global _initialized
     if _initialized:

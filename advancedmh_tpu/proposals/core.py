@@ -111,7 +111,7 @@ def _payload_sample(
 ) -> jax.Array:
     """Draw from a payload. ``batch_shape`` prepends an iid batch (the chain
     axis in the vectorized kernel path) — one RNG call for the whole batch,
-    the key to TPU throughput (no per-chain key folding)."""
+    the key to batched throughput (no per-chain key folding)."""
     if isinstance(payload, Distribution):
         return payload.sample(key, batch_shape)
     if _is_dist_seq(payload):

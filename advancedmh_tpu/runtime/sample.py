@@ -3,7 +3,7 @@
 ≙ the AbstractMCMC driver the reference delegates to (re-exported ``sample``,
 ``MCMCSerial/MCMCThreads/MCMCDistributed`` at reference src/AdvancedMH.jl:30;
 semantics exercised throughout reference test/runtests.jl). The architecture
-is the TPU-native inversion of the reference's one-step-per-call design
+is the accelerator-native inversion of the reference's one-step-per-call design
 (SURVEY.md §7):
 
     sampler kernel (pure)            ──  samplers/*
@@ -45,13 +45,13 @@ class MCMCSerial:
 
 @dataclasses.dataclass(frozen=True)
 class MCMCThreads:
-    """≙ AbstractMCMC.MCMCThreads. On TPU, 'one chain per thread' becomes
-    'one chain per vector lane': a vmapped batch on the local device."""
+    """≙ AbstractMCMC.MCMCThreads. On an accelerator, 'one chain per thread'
+    becomes a vmapped chain batch on the local device."""
 
 
 @dataclasses.dataclass(frozen=True)
 class MCMCDistributed:
-    """≙ AbstractMCMC.MCMCDistributed. On TPU, 'one chain per worker process'
+    """≙ AbstractMCMC.MCMCDistributed. Here 'one chain per worker process'
     becomes chains sharded over the device mesh via shard_map."""
 
     mesh: Optional[Any] = None
@@ -320,7 +320,7 @@ def sample(
     ``callback`` (≙ the AbstractMCMC per-iteration ``callback`` kwarg,
     exercised at reference test/RobustAdaptiveMetropolis.jl:46-56) is invoked
     on the host as ``callback(chunk_result, info)`` at scan-chunk cadence —
-    the TPU-native hook granularity (per-step host calls would serialize
+    the device-friendly hook granularity (per-step host calls would serialize
     the device). ``info`` is a :class:`~.chunked.ChunkInfo`: the integer
     chunk index enriched with ``iteration_range`` (absolute iteration
     labels) and ``final_state`` — the reference callback's ``(state,
@@ -377,50 +377,20 @@ def sample(
     master = as_key(key)
 
     if engine == "fused":
-        from ..samplers.am import AdaptiveMetropolis as _AM
-        from ..samplers.dram import DRAM as _DRAM
-        from ..samplers.barker import Barker as _Barker
-        from ..samplers.demc import DifferentialEvolution as _DEMC
-        from ..samplers.emcee import Ensemble as _Ensemble
-        from ..samplers.ess import EllipticalSlice as _ESS
-        from ..samplers.pcn import PreconditionedCrankNicolson as _PCN
-        from ..samplers.hmc import HamiltonianMC as _HMC
-        from ..samplers.hmc_adapt import AdaptiveHMC as _AHMC
-        from ..samplers.chees import ChEESHMC as _ChEES
-        from ..samplers.mala import MALA as _MALA
-        from ..samplers.meads import MEADS as _MEADS
-        from ..samplers.slice import SliceSampler as _Slice
-        from ..samplers.adapt import StepSizeAdaptation as _SSA
-        from ..samplers.ram import RobustAdaptiveMetropolis
-        from ..samplers.tempering import ReplicaExchange as _RE
-        from .fused import (
-            sample_fused_adapt_rwmh,
-            sample_fused_adaptive_hmc,
-            sample_fused_chees,
-            sample_fused,
-            sample_fused_am,
-            sample_fused_barker,
-            sample_fused_demc,
-            sample_fused_emcee,
-            sample_fused_ess,
-            sample_fused_pcn,
-            sample_fused_hmc,
-            sample_fused_mala,
-            sample_fused_meads,
-            sample_fused_slice,
-            sample_fused_ram,
-            sample_fused_tempering,
-        )
+        from .fused import check_fused_sampler, sample_fused
 
+        check_fused_sampler(sampler)
         if collect_states:
             raise ValueError(
                 "engine='fused' does not collect per-step states; use the "
                 "XLA engine for collect_states=True."
             )
-        # Multi-chip: MCMCDistributed/"shard_map" wraps the fused engine in
+        if num_chains is None:
+            raise ValueError("engine='fused' requires num_chains")
+        # Multi-device: MCMCDistributed/"shard_map" wraps the fused engine in
         # shard_map over the chains mesh axis (zero hot-loop collectives —
-        # each device runs the whole VMEM kernel on its shard, with a
-        # per-shard PRNG seed stride).
+        # each device runs the whole kernel on its shard, from its own
+        # range of the counter stream).
         f_method, f_mesh, f_axis = _resolve_chain_method(chain_method)
         if f_method == "shard_map":
             from ..parallel.mesh import make_mesh
@@ -429,195 +399,19 @@ def sample(
                 f_mesh = make_mesh(axis=f_axis)
         else:
             f_mesh = None
-        mesh_kw = {"mesh": f_mesh, "mesh_axis": f_axis}
-        # Resume (chunked runs): continue from a saved state. The fused
-        # engines draw from the hardware PRNG, so chunked-fused runs are
-        # deterministic given (key, chunk layout) but not bitwise-equal to an
-        # unchunked fused run — distribution-equality is the fused contract.
-        offset = iteration_offset or 0
-        fkey = jax.random.fold_in(master, offset) if offset else master
-        resume_S = None
-        resume_am = None
-        resume_re = None
-        resume_chees = None
-        resume_adapt = None
-        resume_meads = None
+        # Resume (chunked runs): continue from a saved state; the kernel's
+        # step counter starts at the absolute iteration, so a chunked fused
+        # run draws the same stream as an unchunked one.
         if initial_state is not None:
-            if isinstance(sampler, RobustAdaptiveMetropolis):
-                initial_params = initial_state.x
-                resume_S = initial_state.S
-            elif isinstance(sampler, (_AM, _DRAM)):
-                initial_params = initial_state.x
-                resume_am = initial_state
-            elif isinstance(sampler, _RE):
-                resume_re = initial_state
-            elif isinstance(sampler, (_SSA, _AHMC)):
-                # Frozen-continuation resume (VERDICT r3 #4): the saved
-                # per-chain ε̄ (and M⁻¹) are staged back into the resume
-                # kernel variants; pooled AdaptiveHMC states re-stage the
-                # shared scalars onto the frozen kernel.
-                resume_adapt = initial_state
-            elif isinstance(sampler, _ChEES):
-                resume_chees = initial_state
-            elif isinstance(sampler, _MEADS):
-                # MEADS never freezes: resume stages the full persistent
-                # state (x, grad, p, u, iteration) back into the kernel.
-                resume_meads = initial_state
-            else:
-                initial_params = initial_state.params
-        if isinstance(sampler, _Ensemble):
-            # walkers are the batch axis; num_chains does not apply
-            transitions, final_state = sample_fused_emcee(
-                model, sampler, n_samples, key=fkey,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-            return _finish(
-                transitions, final_state, schedule, None, False, sampler,
-                chain_type, param_names,
-            )
-        if isinstance(sampler, _DEMC):
-            # members are the batch axis; num_chains does not apply
-            transitions, final_state = sample_fused_demc(
-                model, sampler, n_samples, key=fkey,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-            return _finish(
-                transitions, final_state, schedule, None, False, sampler,
-                chain_type, param_names,
-            )
-        if num_chains is None:
-            raise ValueError("engine='fused' requires num_chains")
-        if isinstance(sampler, _SSA):
-            transitions, final_state = sample_fused_adapt_rwmh(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                num_warmup=schedule.num_warmup,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_state=resume_adapt,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, RobustAdaptiveMetropolis):
-            transitions, final_state = sample_fused_ram(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                num_warmup=schedule.num_warmup,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_S=resume_S,
-                iteration_offset=offset,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, (_AM, _DRAM)):
-            transitions, final_state = sample_fused_am(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_state=resume_am,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _RE):
-            transitions, final_state = sample_fused_tempering(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_state=resume_re,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _Barker):
-            transitions, final_state = sample_fused_barker(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _PCN):
-            transitions, final_state = sample_fused_pcn(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _ESS):
-            transitions, final_state = sample_fused_ess(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _Slice):
-            transitions, final_state = sample_fused_slice(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _ChEES):
-            transitions, final_state = sample_fused_chees(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                num_warmup=schedule.num_warmup,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_state=resume_chees,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _AHMC):
-            transitions, final_state = sample_fused_adaptive_hmc(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                num_warmup=schedule.num_warmup,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_state=resume_adapt,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _HMC):
-            transitions, final_state = sample_fused_hmc(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _MEADS):
-            transitions, final_state = sample_fused_meads(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                initial_state=resume_meads,
-                iteration_offset=offset,
-                **mesh_kw,
-            )
-        elif isinstance(sampler, _MALA):
-            transitions, final_state = sample_fused_mala(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
-        else:
-            transitions, final_state = sample_fused(
-                model, sampler, n_samples, key=fkey, num_chains=num_chains,
-                initial_params=initial_params,
-                discard_initial=schedule.discard_initial,
-                thinning=schedule.thinning,
-                **mesh_kw,
-            )
+            initial_params = initial_state.params
+        transitions, final_state = sample_fused(
+            model, sampler, n_samples, key=master, num_chains=num_chains,
+            initial_params=initial_params,
+            discard_initial=schedule.discard_initial,
+            thinning=schedule.thinning,
+            iteration_offset=iteration_offset or 0,
+            mesh=f_mesh, mesh_axis=f_axis,
+        )
         return _finish(
             transitions, final_state, schedule, num_chains, False, sampler,
             chain_type, param_names,

@@ -15,11 +15,11 @@ the way SMC does on the evidence side: a small particle budget gives a
 deterministic, optimization-shaped posterior approximation (moments,
 predictive ensembles) at a fixed, known cost.
 
-TPU shape: this is the rare inference algorithm whose hot loop IS a
+Device shape: this is the rare inference algorithm whose hot loop IS a
 matmul — the (N, N) RBF kernel, the kernel-gradient row sums, and the
-kernel-smoothed gradients are three MXU contractions per step (run at
+kernel-smoothed gradients are three matmul contractions per step (run at
 ``Precision.HIGHEST``: pairwise distances enter an exp, and the repulsive
-term is a near-cancellation at converged clouds — the bf16 operand
+term is a near-cancellation at converged clouds — the TF32 operand
 truncation trap, CLAUDE.md). The bandwidth follows the median heuristic
 ``h = med²/log N`` per step (one on-device sort). The whole run is one
 ``lax.scan`` under jit.
@@ -100,7 +100,7 @@ def svgd_sample(
         vg = jax.vmap(jax.value_and_grad(model.logdensity_fn))
 
     def phi(x):
-        """The Stein update direction for the whole cloud: three MXU
+        """The Stein update direction for the whole cloud: three matmul
         contractions (Gram, K·∇, K·x) + the median-bandwidth sort."""
         _, g = vg(x)  # (N, d)
         # Pairwise squared distances via the Gram matrix (HIGHEST: they

@@ -8,7 +8,7 @@ entirely to the user (e.g. the fixed ``σ²`` in its MALA README usage,
 src/MALA.jl:1-11); RAM (src/RobustAdaptiveMetropolis.jl) adapts a full
 covariance factor but not a family-generic scalar scale.
 
-TPU shape: the adaptation statistics (``log ε``, its running average, the
+Batched shape: the adaptation statistics (``log ε``, its running average, the
 dual-averaging error sum) live in the *state pytree*, so the wrapper works
 unchanged under ``vmap`` over chains (each chain adapts its own step size),
 ``lax.scan`` over steps, and ``shard_map`` over the mesh — the sampler object

@@ -13,7 +13,7 @@ where Σ_n is the running empirical covariance of the chain and the fixed
 Adaptive MCMC", §2). For the first ``adapt_start`` iterations (default 2d)
 only the fixed component is used, exactly as in RR09.
 
-TPU-native formulation: Σ_n is never materialized — the state carries its
+Batched formulation: Σ_n is never materialized — the state carries its
 *Cholesky factor* L_n, advanced exactly by the hand-written rank-1 update
 (ops/cholesky.py; the Welford recurrence is symmetric rank-1:
 M2_n = M2_{n−1} + ((n−1)/n)·δδᵀ with δ = x_n − μ_{n−1}, hence
@@ -21,7 +21,7 @@ M2_n = M2_{n−1} + ((n−1)/n)·δδᵀ with δ = x_n − μ_{n−1}, hence
     L_n = rank1_update( √((n−1)/n) · L_{n−1},  (√(n−1)/n) · δ )
 
 — always an *update*, never a downdate, so positive-definiteness is
-unconditional). Proposing costs one d×d triangular matvec (an MXU batched
+unconditional). Proposing costs one d×d triangular matvec (a batched
 matmul over chains), identical to RAM's hot path. Adaptation uses every chain
 state (accepted or not) and continues after warmup — the 1/n weighting makes
 it diminishing, which is what preserves ergodicity (unlike RAM, whose
@@ -75,7 +75,7 @@ class AdaptiveMetropolis(Sampler):
     # merge) instead of each chain learning its own — C observations per step
     # rather than 1, so Σ converges ~C× faster in wall-clock steps. The
     # chain-axis reductions are plain jnp sums; under GSPMD sharding of the
-    # chain axis XLA compiles them to psum/all-reduce over ICI — the SURVEY
+    # chain axis XLA compiles them to a psum/all-reduce — the SURVEY
     # §2 "cross-chain adaptation stats over collectives" plan. Batched-path
     # (step_batched) only; the single-chain kernel has no chain axis to pool.
     pooled: bool = False
@@ -168,7 +168,7 @@ class AdaptiveMetropolis(Sampler):
             M2' = M2 + Σ_c (x_c − x̄)(x_c − x̄)ᵀ + (nC/(n+C))·δδᵀ,
             δ = x̄ − mean,
 
-        computed as one (d,C)·(C,d) MXU matmul + a d×d Cholesky (rank-C
+        computed as one (d,C)·(C,d) matmul + a d×d Cholesky (rank-C
         update ⇒ direct refactorization beats C sequential rank-1 sweeps).
         Moments are stored replicated over the chain axis so the state pytree
         matches the per-chain layout (checkpoints, chunked resume, sharding
@@ -182,9 +182,10 @@ class AdaptiveMetropolis(Sampler):
         n = state.iteration.reshape(-1)[0].astype(dt)
         mean0 = state.mean.reshape(-1, d)[0]
         L0 = state.L.reshape(-1, d, d)[0]
-        # Precision.HIGHEST on both matmuls: the TPU default truncates dot
-        # operands to bf16, and the L→M2→chol round-trip happens EVERY step
-        # — a 2⁻⁸ relative jitter on the running covariance each iteration
+        # Precision.HIGHEST on both matmuls: a float32 matmul on the GPU
+        # otherwise runs in TF32 (10-bit mantissa), and the L→M2→chol
+        # round-trip happens EVERY step — a 2⁻¹¹ relative jitter on the
+        # running covariance each iteration
         # (cf. the pooled-RAM adaptation freeze, samplers/ram.py). Both are
         # cheap next to the density eval.
         HIGH = jax.lax.Precision.HIGHEST
@@ -243,7 +244,7 @@ class AdaptiveMetropolis(Sampler):
         batch_shape: Tuple[int, ...],
     ) -> Tuple[Transition, AdaptiveMetropolisState]:
         """Vectorized step: per-chain moments, batched rank-1 sweeps, and the
-        triangular matvec as one MXU bmm over the chain batch."""
+        triangular matvec as one bmm over the chain batch."""
         model = as_model(model)
         key_inc, key_acc = jax.random.split(key)
         d = state.x.shape[-1]

@@ -1,7 +1,7 @@
 """Sampler kernel protocol and transition pytrees.
 
 The reference architecture is object-dispatch over ``AbstractMCMC.step``
-(src/mh-core.jl:76-117). The TPU-native shape is a pure kernel:
+(src/mh-core.jl:76-117). The JAX-native shape is a pure kernel:
 
     sampler.init(key, model, initial_params) -> (transition, state)
     sampler.step(key, state, model)          -> (transition, state)

@@ -12,9 +12,9 @@ Change in the Estimator of the Expected Square criterion
 whose gradient signal comes *for free* from the cross-chain batch: with the
 trajectory end-velocity v′ = M⁻¹p′ (= dx′/dT), the per-chain contribution
 is Δ·⟨x′−μ, v′⟩ weighted by the acceptance probability. All chains run the
-SAME (jittered) trajectory length each iteration — perfect lane utilization
-on the MXU/VPU, zero divergence — and the chain-axis means compile to
-``psum`` over ICI under GSPMD sharding (SURVEY §2 "psum … cross-chain
+SAME (jittered) trajectory length each iteration — no divergence between
+chains of a batch — and the chain-axis means compile to a ``psum`` across
+devices under GSPMD sharding (SURVEY §2 "psum … cross-chain
 adaptation stats").
 
 Jointly adapted during warmup, all from shared cross-chain statistics:

@@ -19,7 +19,7 @@ Hastings factor ‖y−z‖^{d−1}/‖x−z‖^{d−1}. Snooker moves travel fa
 directions the population spans and decorrelate faster in high d; the paper
 recommends a ~10% mixing fraction and γ_s = 2.38/√2.
 
-TPU formulation mirrors this framework's emcee (samplers/emcee.py): the
+The batched formulation mirrors this framework's emcee (samplers/emcee.py): the
 reference-style sequential population update would serialize, so the
 population splits red-black — each half moves *in parallel* with both
 difference members drawn from the frozen complementary half. Given the

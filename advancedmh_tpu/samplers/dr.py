@@ -13,7 +13,7 @@ depends only on the current point). DR lets one chain combine a bold scale
 when the bold move fails) — with the AdaptiveMetropolis-style covariance
 this composite is the classic DRAM.
 
-TPU formulation: the reference CPU pattern ("only evaluate stage 2 when
+Batched formulation: the reference CPU pattern ("only evaluate stage 2 when
 stage 1 rejects") is a data-dependent branch that would serialize a chain
 batch. Here BOTH stages are evaluated unconditionally — exactly two density
 evaluations per step for every chain — and the stage-2 result is masked in

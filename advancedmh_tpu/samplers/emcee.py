@@ -2,7 +2,7 @@
 
 ≙ reference src/emcee.jl. The reference updates walkers *sequentially*, each
 against a random mix of already-moved and old walkers (src/emcee.jl:50-55) —
-a data dependence that would serialize a TPU. This implementation uses the
+a data dependence that would serialize the walker batch. This implementation uses the
 standard **red-black / complementary-ensemble** parallel formulation
 (Foreman-Mackey et al. 2013, §3): the ensemble splits into two halves; each
 half moves *in parallel* against the frozen other half, then they swap. This
@@ -12,7 +12,7 @@ bitwise — SURVEY.md §3.5.
 
 Under ``vmap`` the whole half-move is one fused kernel over the walker batch;
 when walkers shard across devices, the complementary half is exchanged with a
-single ``all_gather`` over ICI (see parallel/sharded.py) — the only
+single ``all_gather`` (see parallel/emcee.py) — the only
 collective in any hot loop of this framework.
 
 Note: the reference evaluates the accepted candidate's log density *twice*

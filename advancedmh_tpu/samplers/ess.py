@@ -22,7 +22,7 @@ Every iteration of the shrinkage loop proposes on an ellipse through the
 current state and the prior draw, so the prior marginal is preserved exactly
 and the step has **no rejections and no tuning parameters**.
 
-TPU mapping: the data-dependent ``while true`` becomes one
+Batched mapping: the data-dependent ``while true`` becomes one
 ``lax.while_loop`` over the whole chain batch — each trip evaluates the
 likelihood for *all* chains in one fused vmapped pass and updates only the
 not-yet-done chains (masked select), exiting when every chain has accepted

@@ -8,7 +8,7 @@ Hamiltonian Dynamics §5.2; Duane et al. 1987). The MH correction makes the
 discretization error vanish — HMC *is* a Metropolis-Hastings sampler with a
 deterministic, volume-preserving, reversible proposal, hence in scope here.
 
-TPU shape: the leapfrog loop is a ``lax.fori_loop`` with a **static** trip
+Batched shape: the leapfrog loop is a ``lax.fori_loop`` with a **static** trip
 count (compiler-friendly control flow; no data-dependent trajectory length —
 that is NUTS, deliberately out of family). Each step costs exactly
 ``n_leapfrog`` fused value-and-gradient evaluations; the gradient is cached

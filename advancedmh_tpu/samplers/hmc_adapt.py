@@ -19,8 +19,8 @@ windowless continuous-adaptation regime; with ``pooled=True`` all chains
 feed ONE shared estimate via the exact Chan–Golub–LeVeque batch-Welford
 merge — C positions of cross-chain information per step, the many-chain
 design of Hoffman & Sountsov's MEADS (2022) / ChEES-HMC (2021), and the
-natural TPU shape: the chain-axis mean compiles to a ``psum`` over ICI
-under GSPMD sharding (≙ SURVEY §2 "psum … cross-chain adaptation stats").
+natural accelerator shape: the chain-axis mean compiles to a ``psum``
+across devices under GSPMD sharding (≙ SURVEY §2 "psum … cross-chain adaptation stats").
 
 The cached gradient stays valid across mass updates (∇log π depends only
 on position), so refreshing M⁻¹ costs zero extra density evaluations.

@@ -22,7 +22,7 @@ The max-eigenvalue estimator is the paper's pair trick for PSD second
 moments ``A = E[vvᵀ]``: ``λ̂ = tr(A²)/tr(A)`` with
 ``tr(A²) ≈ Σ_{i≠j}⟨v_i,v_j⟩²/(F(F−1))`` and ``tr(A) ≈ Σ_i‖v_i‖²/F`` —
 a soft-max over the spectrum needing only one (d,F)·(F,d) Gram matmul
-(run at ``Precision.HIGHEST``; the TPU default truncates operands to bf16).
+(run at ``Precision.HIGHEST``; the GPU default runs float32 matmuls in TF32).
 
 **Why folds.** Chains are partitioned into ``n_folds`` contiguous blocks;
 fold k's parameters come from fold k−1 (mod K), and folds update
@@ -48,8 +48,8 @@ Scope: array params (the ``(d,)``-vector family every fused engine
 targets); pytree params raise. Requires a chain batch — there is no
 single-chain MEADS signal (``step`` raises; ``step_batched`` is the
 kernel, ≙ ChEES's batched-only ChEES gradient). Chains shard over the
-mesh as usual; the per-fold reductions compile to psums over ICI under
-GSPMD (SURVEY §2 "psum … cross-chain adaptation stats").
+mesh as usual; the per-fold reductions compile to psums across devices
+under GSPMD (SURVEY §2 "psum … cross-chain adaptation stats").
 """
 from __future__ import annotations
 

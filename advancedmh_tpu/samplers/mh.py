@@ -78,7 +78,7 @@ class MetropolisHastings(Sampler):
     def step_batched(
         self, key: KeyArray, state: Transition, model, batch_shape: Tuple[int, ...]
     ) -> Tuple[Transition, Transition]:
-        """Vectorized step over a chain batch — the TPU hot path.
+        """Vectorized step over a chain batch — the device hot path.
 
         Semantically equal to ``vmap(step)`` but with *batched RNG*: one key
         per step instead of one per (chain, step), so the per-step threefry

@@ -1,8 +1,8 @@
-"""Multiple-Try Metropolis (Liu, Liang & Wong 2000), TPU-vectorized.
+"""Multiple-Try Metropolis (Liu, Liang & Wong 2000), vectorized.
 
 Beyond-parity sampler (no reference equivalent — the reference's samplers are
 all one-candidate-per-step, src/mh-core.jl:92-117). MTM is the natural
-TPU-shaped generalization of :class:`MetropolisHastings`: each step draws
+batched generalization of :class:`MetropolisHastings`: each step draws
 ``k`` candidates, evaluates all their log densities *in one batched call*,
 selects one proportionally to its density (Gumbel-argmax), and accepts with
 the multiple-try ratio
@@ -13,10 +13,10 @@ where the reference set ``x*`` is drawn around the selected candidate. With
 ``k = 1`` this reduces exactly to standard Metropolis-Hastings.
 
 This is the symmetric-weight form (w(x, y) = π(y)), which requires a
-*symmetric* proposal — asymmetric proposals raise at construction. On TPU the
-2k−1 density evaluations per step are a batch axis fused with the chain axis:
-per-step wall time is nearly flat in ``k`` until the chip saturates, while
-acceptance (and ESS per step) rises with ``k``.
+*symmetric* proposal — asymmetric proposals raise at construction. The
+2k−1 density evaluations per step are a batch axis fused with the chain axis,
+so they are one batched density call per phase, while acceptance (and ESS
+per step) rises with ``k``.
 """
 from __future__ import annotations
 
@@ -156,6 +156,6 @@ class MultipleTryMetropolis(MetropolisHastings):
         batch_shape: Tuple[int, ...],
     ) -> Tuple[Transition, Transition]:
         """Vectorized over the chain batch: the density sees one
-        ``(k · chains)``-sized batch per phase — the TPU hot path."""
+        ``(k · chains)``-sized batch per phase — the device hot path."""
         model = as_model(model)
         return self._mtm_core(key, state, model, batch_shape)

@@ -14,7 +14,7 @@ collapse, so the same β works for d=2 and d=10⁴ latent fields.
 
 Where ESS is rejection-free but costs a shrinkage loop of likelihood
 evaluations per step, pCN costs exactly ONE likelihood evaluation per step —
-on TPU that makes it the throughput workhorse for GP/latent-field targets,
+that makes it the throughput workhorse for GP/latent-field targets,
 with ESS as the tuning-free fallback.
 
 Promoted from the custom-sampler template (tests/test_custom_sampler.py

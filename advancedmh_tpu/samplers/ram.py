@@ -6,8 +6,8 @@ rank-1 Cholesky update/downdate sized to coerce the acceptance rate to ``α``
 (default 0.234), with an eigenvalue clamp keeping the previous ``S`` when the
 adapted factor leaves the configured bounds.
 
-TPU mapping: the d×d triangular matvec ``S·U`` batches over chains into one
-MXU matmul under ``vmap``; the rank-1 sweep is the hand-written kernel in
+Batched mapping: the d×d triangular matvec ``S·U`` batches over chains into
+one matmul under ``vmap``; the rank-1 sweep is the hand-written kernel in
 ops/cholesky.py. This is the only sampler with a warmup/main phase split
 (``step_warmup`` vs ``step``) and the only one whose state carries more than
 (params, lp).
@@ -53,7 +53,7 @@ class RobustAdaptiveMetropolis(Sampler):
     # natural multi-chain generalization of Vihola's update — the per-chain
     # rank-1 corrections average into one rank-C correction, applied as
     # S' = S·chol(I + η·mean_c Δα_c·û_c û_cᵀ)). The chain-axis mean is a
-    # plain reduction; under GSPMD sharding it compiles to a psum over ICI
+    # plain reduction; under GSPMD sharding it compiles to a psum
     # (SURVEY §2 "psum for RAM cross-chain adaptation stats"). Batched path
     # only; C chains contribute per step so S converges ~C× faster.
     pooled: bool = False
@@ -110,7 +110,7 @@ class RobustAdaptiveMetropolis(Sampler):
         key_u, key_acc = jax.random.split(key)
         x = state.x
         U = jax.random.normal(key_u, x.shape, x.dtype)
-        # muladd(S, U, x): batches to an MXU matmul over the chain axis.
+        # muladd(S, U, x): batches to a matmul over the chain axis.
         x_new = state.S @ U + x
         lp_new = logdensity(model, x_new)
         # min(..., 0) so logα is a true log acceptance probability — ram_adapt
@@ -194,7 +194,7 @@ class RobustAdaptiveMetropolis(Sampler):
         key_u, key_acc = jax.random.split(key)
         x = state.x  # (C, d)
         U = jax.random.normal(key_u, x.shape, x.dtype)
-        # Batched triangular matvec — one MXU-friendly bmm over the chains.
+        # Batched triangular matvec — one bmm over the chains.
         x_new = jnp.einsum("...ij,...j->...i", state.S, U) + x
         lp_new = logdensity_batched(model, x_new)
         logalpha = jnp.minimum(lp_new - state.logprob, 0.0)
@@ -228,14 +228,13 @@ class RobustAdaptiveMetropolis(Sampler):
         fail; S' = S·chol(I+ηW) stays lower-triangular. One (d,C)·(C,d)
         matmul + one d×d Cholesky per step, shared across all chains.
 
-        Both matmuls run at ``Precision.HIGHEST``: the TPU default truncates
-        dot operands to bf16, and chol(I + ηW) is within bf16's 2⁻⁸ spacing
-        of I as soon as η·‖W‖ < ~4e-3 (η = t^−0.6 reaches that by t ≈ 100 on
-        target) — the truncated factor rounds to exactly I and adaptation
-        silently FREEZES mid-warmup (observed on hardware: S stalled at
-        65% of its converged scale, frozen-phase acceptance 0.375 vs the
-        0.234 target). The matmuls are (d,C)·(C,d) and d×d — negligible
-        next to the density eval at 3× pass cost."""
+        Both matmuls run at ``Precision.HIGHEST``: at the default precision
+        a float32 matmul on the GPU runs in TF32 (10-bit mantissa), and
+        chol(I + ηW) lies within TF32's spacing of I once η·‖W‖ falls below
+        ~1e-3 (η = t^−0.6 shrinks every step) — the truncated factor rounds
+        to exactly I and adaptation silently FREEZES mid-warmup. The
+        matmuls are (d,C)·(C,d) and d×d — small next to the density
+        eval."""
         HIGH = jax.lax.Precision.HIGHEST
         d = U.shape[-1]
         Uf = U.reshape(-1, d)

@@ -20,7 +20,7 @@ Rejection-free in the same sense as ESS: every step ends at an in-slice
 point (up to the ``max_shrink`` safety bound — exhausted chains keep their
 state and report ``accepted=False``).
 
-TPU mapping: both data-dependent loops run as masked batched loops — the
+Batched mapping: both data-dependent loops run as masked batched loops — the
 stepping-out phase is a ``lax.fori_loop`` of ``max_stepout − 1`` trips
 (static budget; each trip evaluates *both* bracket ends for the whole chain
 batch and expands only lanes with budget left and an in-slice end), the

@@ -7,7 +7,7 @@ adjacent-temperature swaps are proposed after every inner step with the
 standard exchange acceptance ``logα = (β_i − β_j)(ℓ_j − ℓ_i)`` on the raw
 log densities ℓ.
 
-TPU-native shape: the K replicas are a *leading array axis* of one chain's
+Batched shape: the K replicas are a *leading array axis* of one chain's
 state — the inner sampler steps under ``vmap`` over (replica, β), and the
 even-odd swap sweep is two vectorized half-exchanges (the same red-black
 pattern as the emcee ensemble, samplers/emcee.py). The runtime then vmaps

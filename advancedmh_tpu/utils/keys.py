@@ -1,7 +1,7 @@
 """RNG key plumbing.
 
 The reference threads a stateful ``Random.AbstractRNG`` through every call
-(e.g. reference src/mh-core.jl:92-117). On TPU we use JAX's counter-based,
+(e.g. reference src/mh-core.jl:92-117). Here we use JAX's counter-based,
 splittable keys instead: every step/chain/leaf derives its own key by
 ``fold_in``/``split``, which is cheap, parallel-safe, and partitionable across
 a device mesh (``jax_threefry_partitionable``). Sampling therefore matches the

@@ -1,17 +1,18 @@
-"""Bayesian logistic regression throughput — the MXU-bound showcase.
+"""Bayesian logistic regression throughput: the matmul-density target.
 
-The flagship 2-param Gaussian density is VPU-bound; this benchmark measures
-the d=32, 256-observation logistic posterior whose likelihood is a matmul
-(models/targets.py::logistic_regression_model), so the density evaluation
-rides the MXU both in the XLA vectorized path and inside the fused Pallas
-kernels. Reports chain-steps/s and density-GFLOP/s (2·n·d flops per
-density eval).
+The flagship 2-param Gaussian density is elementwise; this benchmark
+measures the d=32, 256-observation logistic posterior whose likelihood is a
+matmul (models/targets.py::logistic_regression_model), on the XLA engine
+(``(C, d) @ (d, n)`` per step) and in the fused RWMH kernel (``X (n, d) @
+β (d, TC)`` per block), plus a d=128 fused row. Reports chain-steps/s and
+density-GFLOP/s (2·n·d flops per density eval). Every timing ends in
+``jax.block_until_ready``; the first call of each row compiles and is not
+timed.
 
-Run on the real chip: `python benchmarks/logreg.py`.
+Run on a GPU: `python benchmarks/logreg.py`.
 """
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # timing.py
 
 import json
 import time
@@ -19,74 +20,51 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from timing import best_of
+from advancedmh_tpu.utils.compile_cache import enable_compile_cache
 
 N_CHAINS = 8192
 N_OBS = 256
 DIM = 32
 N_STEPS = 2000
-SCALE = 0.05
+SCALE = 0.3
+
+
+def _best(go, n_trials=3):
+    jax.block_until_ready(go())  # compile
+    best = float("inf")
+    for _ in range(n_trials):
+        t0 = time.perf_counter()
+        jax.block_until_ready(go())
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def _model(dim=DIM):
     from advancedmh_tpu.models.targets import logistic_regression_model
 
-    return logistic_regression_model(n_obs=N_OBS, dim=dim, seed=0)
+    return logistic_regression_model(n_obs=N_OBS, dim=dim)
 
 
 def bench_fused_rwmh(model, dim=DIM, scale=SCALE):
-    from advancedmh_tpu.ops import fused_rwmh
+    from advancedmh_tpu.ops import fused_rwmh_sample
+    from advancedmh_tpu.runtime.fused import launch_shape
 
-    run = fused_rwmh(
-        model.tile_density, d=dim, scale=scale, n_steps=N_STEPS,
-        consts=model.tile_consts, tile_chains=1024,
+    _, launch = launch_shape(N_CHAINS, dim)
+    run = fused_rwmh_sample(
+        model.tile_density, dim, scale, 1, burn=N_STEPS - 1,
+        consts=model.tile_consts, **launch,
     )
     params = jnp.zeros((dim, N_CHAINS), jnp.float32)
-    consts = tuple(jnp.asarray(c) for c in model.tile_consts)
-    lp0 = model.tile_density(params, *consts)
-
-    def go(seed):
-        out = run(params, lp0, seed)
-        return float(out[2].mean())  # dependent scalar read = true fence
-
-    best, acc = best_of(go)
-    assert 0.05 < acc / N_STEPS < 0.95, f"degenerate acceptance {acc/N_STEPS}"
+    lp0 = model.tile_density(params, *map(jnp.asarray, model.tile_consts))
+    ctl = jnp.asarray([0, 1, 0, 0], jnp.uint32)
+    best = _best(lambda: run(params, lp0, ctl))
     return N_CHAINS * N_STEPS / best
 
 
 def bench_fused_rwmh_d128(model_unused):
-    """d=128 variant: same kernel, 4x the matmul contraction depth. The
-    chain-step rate barely moves vs d=32 (the step is dependency-latency
-    bound, see docs/design.md roofline) so the density matmul rides the MXU
-    at ~4x the TF/s — the kernel design scales to whatever FLOPs the model
-    carries."""
-    return bench_fused_rwmh(_model(dim=128), dim=128, scale=0.02)
-
-
-def bench_fused_mala(model):
-    from advancedmh_tpu.ops.pallas_mala import fused_mala_sample
-
-    n_samples = 512
-    run = fused_mala_sample(
-        model.tile_density, d=DIM, step_size_sq=0.01, n_samples=n_samples,
-        burn=64, thin=1, consts=model.tile_consts, tile_chains=512,
-        samples_per_block=16,
-    )
-    x = jnp.zeros((DIM, N_CHAINS), jnp.float32)
-    consts = tuple(jnp.asarray(c) for c in model.tile_consts)
-    lp0 = model.tile_density(x, *consts)
-    g0 = jax.grad(lambda xm: jnp.sum(model.tile_density(xm, *consts)))(x)
-
-    def go(seed):
-        samples, _, accs = run(x, lp0, g0, seed)
-        float(samples[-1, 0, 0])
-        return float(accs.mean())
-
-    best, acc = best_of(go)
-    assert 0.05 < acc < 0.999, f"degenerate acceptance {acc}"
-    return N_CHAINS * (n_samples + 64) / best
+    """d=128: four times the density FLOPs per step of the d=32 row."""
+    return bench_fused_rwmh(_model(128), dim=128, scale=SCALE / 2)
 
 
 def bench_xla_rwmh(model):
@@ -110,42 +88,32 @@ def bench_xla_rwmh(model):
 
     params = jnp.zeros((N_CHAINS, DIM), jnp.float32)
     lp = model.logdensity_batched_fn(params)
-
-    def go(_seed):
-        p, l = run(params, lp, N_STEPS)
-        return float(l[0])
-
-    best, _ = best_of(go, n_trials=2)
+    best = _best(lambda: run(params, lp, N_STEPS))
     return N_CHAINS * N_STEPS / best
 
 
 def main():
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"benchmarks/logreg.py needs a GPU, found {dev.platform!r}")
+    enable_compile_cache()
+    print(json.dumps({"platform": dev.platform, "kind": dev.device_kind,
+                      "count": len(jax.devices())}))
     model = _model()
     out = {}
     for name, fn in [
         ("xla_rwmh", bench_xla_rwmh),
         ("fused_rwmh", bench_fused_rwmh),
-        ("fused_mala", bench_fused_mala),
         ("fused_rwmh_d128", bench_fused_rwmh_d128),
     ]:
-        try:
-            r = fn(model)
-            # MALA's value_and_grad is 2 matmuls per step: the forward
-            # X @ β plus one backward Xᵀ @ (y − σ(z)) (z is a stored
-            # residual — there is no third matmul).
-            evals = 2.0 if name == "fused_mala" else 1.0
-            fpe = 2 * N_OBS * (128 if name.endswith("d128") else DIM)
-            out[name] = {
-                "chain_steps_per_s": r,
-                "density_gflops": r * fpe * evals / 1e9,
-            }
-        except Exception as e:  # noqa: BLE001
-            out[name] = {"error": f"{type(e).__name__}: {e}"}
+        r = fn(model)
+        fpe = 2 * N_OBS * (128 if name.endswith("d128") else DIM)
+        out[name] = {"chain_steps_per_s": r, "density_gflops": r * fpe / 1e9}
         print(json.dumps({name: out[name]}), flush=True)
     print(json.dumps({
         "metric": "logreg_d32_chain_steps_per_s",
         "chains": N_CHAINS, "dim": DIM, "n_obs": N_OBS,
-        **{k: v.get("chain_steps_per_s") for k, v in out.items()},
+        **{k: v["chain_steps_per_s"] for k, v in out.items()},
     }))
 
 

@@ -13,14 +13,6 @@ from advancedmh_tpu.models import emcee_demo_model
 
 N_WALKERS = int(os.environ.get("N_WALKERS", 1000))
 N_SAMPLES = int(os.environ.get("N_SAMPLES", 1000))
-ENGINE = os.environ.get("ENGINE", "xla")  # ENGINE=fused → Pallas kernel (TPU)
-
-if ENGINE == "fused" and N_WALKERS % 256 != 0:
-    print(
-        f"ENGINE=fused needs n_walkers as a multiple of 256 (half-ensembles "
-        f"align to 128 vector lanes); coercing N_WALKERS {N_WALKERS} -> 1024"
-    )
-    N_WALKERS = 1024
 
 
 def main():
@@ -28,7 +20,7 @@ def main():
     sampler = Ensemble(
         N_WALKERS, StretchProposal([InverseGamma(2.0, 3.0), Normal(0.0, 1.0)])
     )
-    chain = sample(model, sampler, N_SAMPLES, key=100, engine=ENGINE,
+    chain = sample(model, sampler, N_SAMPLES, key=100,
                    chain_type="chains", param_names=["s", "m"])
     s_mean = float(chain["s"].mean())
     m_mean = float(chain["m"].mean())

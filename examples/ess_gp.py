@@ -6,7 +6,7 @@ GP binary classification on a 1-D grid: latent f ~ N(0, K) (RBF kernel),
 observations y ∈ {−1, +1} with logistic likelihood σ(y·f) — non-conjugate,
 the standard ESS application (Murray, Adams & MacKay 2010 §4). ESS needs no
 step size and never rejects; the per-step prior draw ν = L·ε is a batched
-triangular matvec that rides the MXU under the chain batch."""
+triangular matvec under the chain batch, at HIGHEST precision."""
 import os
 import sys
 

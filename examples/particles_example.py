@@ -9,7 +9,7 @@ A correlated 2-D Gaussian posterior solved by the three r5 additions:
   posterior; returns the posterior cloud AND the marginal likelihood from
   the same run.
 - **SVGD** (runtime/svgd.py): deterministic Stein flow — a small
-  fixed-cost particle cloud transported by MXU kernel matmuls.
+  fixed-cost particle cloud transported by kernel matmuls.
 
 All three recover the same moments; SMC also certifies the evidence
 against the analytic value of this conjugate-style target.

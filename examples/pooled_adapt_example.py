@@ -4,7 +4,7 @@ statistics over collectives").
 With `pooled=True`, every chain feeds ONE shared covariance estimate each
 step — C observations per step instead of 1 — so RAM's shape factor S (and
 AM/DRAM's Welford Σ) converge ~C× faster in wall-clock steps. The
-chain-axis reductions compile to psum over ICI when the chain batch is
+chain-axis reductions compile to a psum across devices when the chain batch is
 sharded over a mesh (`chain_method=MCMCDistributed()`).
 """
 import os

@@ -3,10 +3,10 @@
 // and disk IO overlap with the next on-device scan chunk.
 //
 // This is the framework's native IO runtime (≙ SURVEY.md's note that the
-// reference has no native components — the data-path pieces here are new,
-// TPU-era engineering: at 10k chains × 100k steps the sample stream is
-// ~10 GB/run and a synchronous np.savez in the sampling loop would stall the
-// accelerator pipeline).
+// reference has no native components — the data-path pieces here are new:
+// at 10k chains × 100k steps the sample stream is ~10 GB/run and a
+// synchronous np.savez in the sampling loop would stall the accelerator
+// pipeline).
 //
 // C API (ctypes-friendly):
 //   handle = cs_open(path, n_cols)         // float32 rows of n_cols

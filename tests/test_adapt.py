@@ -157,7 +157,7 @@ class TestPerChainAdaptation:
 
 
 class TestBatchedKernel:
-    """step_batched/step_warmup_batched (the TPU hot path): per-chain
+    """step_batched/step_warmup_batched (the batched hot path): per-chain
     adaptation semantics match the vmap-of-single-chain kernels."""
 
     def test_batched_matches_single_chain_semantics(self):

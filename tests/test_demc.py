@@ -168,13 +168,13 @@ class TestMechanics:
         assert abs(b.mean()) < 0.15
 
     def test_fused_member_count_must_align(self):
-        """engine='fused' validation raises before any Pallas compile (the
-        fused kernel itself is TPU-gated in test_pallas.py)."""
+        """engine='fused' has no DE-MC kernel: it raises before anything is
+        traced."""
         model = DensityModel(_logprob_untransformed)
         spl = DifferentialEvolution(
             1000, [InverseGamma(2.0, 3.0), Normal(0.0, 1.0)]
         )
-        with pytest.raises(ValueError, match="multiple of 256"):
+        with pytest.raises(ValueError, match="no kernel for Differential"):
             sample(model, spl, 10, key=0, engine="fused")
 
     def test_mode_jump_hops_bimodal(self):

@@ -123,7 +123,7 @@ class TestInterface:
     def test_max_shrink_exhaustion_keeps_state(self):
         """A −inf likelihood region can never satisfy the slice condition:
         the chain keeps its state and reports accepted=False instead of
-        hanging (the TPU-native replacement for the reference's unbounded
+        hanging (the batched-device replacement for the reference's unbounded
         ``while true``, src/emcee.jl:133)."""
         impossible = DensityModel(lambda th: -jnp.inf * jnp.ones(()))
         spl = EllipticalSlice(Normal(0.0, 1.0), max_shrink=8)

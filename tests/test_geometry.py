@@ -33,7 +33,9 @@ from advancedmh_tpu import (
     SliceSampler,
     sample,
 )
-from advancedmh_tpu.models.targets import banana_model, neal_funnel_model
+from advancedmh_tpu.models.targets import (
+    banana_model, emcee_demo_model, neal_funnel_model,
+)
 
 # Exact funnel neck masses: P(v < -c) = Phi(-c/3) for v ~ N(0, 9).
 _P_NECK2 = 0.25249  # Phi(-2/3)
@@ -59,7 +61,8 @@ class TestTargetDefinitions:
             np.testing.assert_allclose(g, g_ad, rtol=1e-4, atol=1e-4)
 
     @pytest.mark.parametrize(
-        "model", [neal_funnel_model(6), banana_model()], ids=["funnel", "banana"]
+        "model", [emcee_demo_model(transformed=True), banana_model()],
+        ids=["emcee_log_s", "banana"],
     )
     def test_tile_density_matches_logdensity(self, model):
         xs = np.random.default_rng(1).normal(

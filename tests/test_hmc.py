@@ -320,6 +320,6 @@ class TestMultinomialTrajectory:
     def test_fused_engine_rejects_multinomial(self):
         model, _ = self._model()
         spl = HamiltonianMC(0.3, 6, trajectory_sampling="multinomial")
-        with pytest.raises(ValueError, match="endpoint-only"):
+        with pytest.raises(ValueError, match="no kernel for HamiltonianMC"):
             sample(model, spl, 10, key=0, num_chains=1024, engine="fused",
                    initial_params=jnp.zeros(2))

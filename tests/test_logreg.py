@@ -1,7 +1,7 @@
 """Logistic-regression target model: consistency across the three density
-forms (scalar / chain-batched / Pallas tile) and posterior recovery.
+forms (scalar / chain-batched / kernel tile) and posterior recovery.
 
-This is the high-dimensional MXU showcase target (models/targets.py); the
+This is the high-dimensional matmul showcase target (models/targets.py); the
 reference has no analog model, but it exercises the same black-box
 DensityModel capability (reference src/AdvancedMH.jl:52-54) at d ≫ 2.
 """

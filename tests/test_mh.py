@@ -4,7 +4,7 @@
 testsets (:56-110): the 2-parameter Gaussian (μ, σ) model with 300 obs from
 N(0,1) and a σ ≥ 0 support guard must recover mean μ ≈ 0 ± 0.1 and
 mean σ ≈ 1 ± 0.1. The reference uses 100k sequential draws; here the same
-draw budget is a (chains × samples) batch — the TPU-native shape.
+draw budget is a (chains × samples) batch — the batched-device shape.
 """
 import jax
 import jax.numpy as jnp

@@ -113,10 +113,10 @@ class TestMultihostHelpers:
         from advancedmh_tpu.parallel import multihost
 
         monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
-        monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-        assert not multihost._multi_host_env()  # one worker = single host
-        monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-0,host-1")
+        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+        assert not multihost._multi_host_env()  # nothing set = single host
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:8476")
         assert multihost._multi_host_env()
-        monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
+        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
         monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:8476")
         assert multihost._multi_host_env()
